@@ -12,6 +12,10 @@ batcher take as ``params``. Layouts:
 - ``tok_embed/embedding`` (V, C) -> ``tok_embed``
 - ``lm_head/kernel`` (C, V) -> ``lm_head``
 - RMSNorm ``scale`` (C,) -> ``*.scale``
+
+:func:`jax_path` maps a port name back to its flax path
+(``layers.0.attn.q_proj`` -> ``layer0/attn/q_proj/kernel``), the string the
+JAX package's ``optim.decay_exclude`` regexes are matched against.
 """
 
 from __future__ import annotations
@@ -69,3 +73,17 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
             arr = arr.reshape(-1, arr.shape[-1])
         out[name] = torch.from_numpy(np.array(arr, np.float32, order="C"))
     return out
+
+
+def jax_path(name: str) -> str:
+    """The '/'-joined flax param path of the port's weight ``name``."""
+    if name == "tok_embed":
+        return "tok_embed/embedding"
+    if name == "lm_head":
+        return "lm_head/kernel"
+    parts = name.split(".")
+    if parts[0] == "layers" and len(parts) > 2 and parts[1].isdigit():
+        parts = [f"layer{parts[1]}"] + parts[2:]
+    if parts[-1] != "scale":
+        parts.append("kernel")
+    return "/".join(parts)

@@ -14,6 +14,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -23,8 +25,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # name -> loaded ctypes library (one load per process)
 _LIBS: dict[str, ctypes.CDLL] = {}
-# name -> nvcc's output of the build made by this process
+# name -> nvcc's output and seconds of the build made by this process
 BUILD_LOGS: dict[str, str] = {}
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -51,6 +54,7 @@ def _build(name: str) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                           capture_output=True, text=True)
     log = proc.stdout + proc.stderr
@@ -58,6 +62,7 @@ def _build(name: str) -> str:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a reader never sees a partial library
+    BUILD_SECONDS[name] = time.perf_counter() - t0
     BUILD_LOGS[name] = log
     return out
 
@@ -68,3 +73,12 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(_build(name))
     return lib
+
+
+def load_all(names: list[str]) -> None:
+    """Build the libraries ``names`` at once (one ``nvcc`` each, all
+    running together), then load them."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        list(pool.map(_build, names))
+    for name in names:
+        load(name)

@@ -1,14 +1,24 @@
 """Llama-2 decoder in PyTorch: the counterpart of the JAX package's
-``models/llama.py`` for the serving path.
+``models/llama.py`` for the serving and the training paths.
 
 RMSNorm (fp32 math), rotary embeddings (split-half convention, linear or
 ntk scaling), GQA-capable attention, SwiGLU MLP, untied LM head.
 
-Weights live in the model in the compute dtype, cast once at load (the JAX
-package keeps fp32 params and casts them at every use, which gives the same
-values). Norm scales stay fp32. The LM head keeps its bf16-rounded values
-in fp32, so the head runs bf16 operands with fp32 accumulation and the
-logits stay fp32, as the JAX head's ``preferred_element_type`` does.
+One class, two ways to hold the weights:
+
+- serving (``trainable=False``): weights live in the compute dtype, cast
+  once at load (the JAX package keeps fp32 params and casts them at every
+  use, which gives the same values). The LM head keeps its bf16-rounded
+  values in fp32.
+- training (``trainable=True``): every weight is an ``nn.Parameter`` in
+  ``param_dtype`` (fp32) with ``requires_grad``, cast to the compute dtype
+  at every use, as the JAX package does; blocks run under remat when
+  ``model.remat`` is set, and with ``model.fused_lm_loss`` the forward
+  returns {'loss_sum', 'weight_sum'} through ``losses.chunked_causal_ce``.
+
+Norm scales stay fp32 either way. The head multiplies bf16-rounded operands
+in fp32, so the logits are fp32 with no bf16 rounding, as the JAX head's
+``preferred_element_type`` gives.
 
 Projection weights keep the JAX layout, (in, out), flattened to 2-D:
 q/k/v (C, H*D), o (H*D, C), MLP (in, out), embedding (V, C), head (C, V).
@@ -26,9 +36,9 @@ see :meth:`LlamaForCausalLM.twin`):
 The JAX module's ``decode_multi`` (multi-token continuation, used by chat
 sessions and speculative serving) waits for those features.
 
-Not ported in this slice, and refused when asked for: MoE, context
-parallelism, int8 QAT, the paged cache, fp8 KV storage, the fused loss and
-``segment_eos_id``.
+Not ported yet, and refused when asked for: MoE, context parallelism,
+int8 QAT, the paged cache, fp8 KV storage, ``segment_eos_id`` and remat
+policies other than "full".
 """
 
 from __future__ import annotations
@@ -40,6 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pytorch_distributed_train_tpu_torch.losses import chunked_causal_ce
+from pytorch_distributed_train_tpu_torch.models import remat as remat_lib
 from pytorch_distributed_train_tpu_torch.ops.attention import (
     VALID_IMPLS,
     dot_product_attention,
@@ -118,6 +130,12 @@ def _param(shape, dtype, device="meta"):
                         requires_grad=False)
 
 
+def _cast(w, x):
+    """A weight in x's dtype: a no-op for serving weights, the per-use cast
+    of the fp32 params in training."""
+    return w.to(x.dtype)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -147,9 +165,9 @@ class LlamaAttention(nn.Module):
                 layer: int):
         B, S, C = x.shape
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
-        q = (x @ self.q_proj).view(B, S, H, D)
-        k = (x @ self.k_proj).view(B, S, Hkv, D)
-        v = (x @ self.v_proj).view(B, S, Hkv, D)
+        q = (x @ _cast(self.q_proj, x)).view(B, S, H, D)
+        k = (x @ _cast(self.k_proj, x)).view(B, S, Hkv, D)
+        v = (x @ _cast(self.v_proj, x)).view(B, S, Hkv, D)
         cos, sin = rope
         if not mode.decode:
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
@@ -185,7 +203,7 @@ class LlamaAttention(nn.Module):
                 mask &= (q_pos[:, :, None] - k_pos[None, None, :]) < mode.window
             y = dot_product_attention(q, cache.k[layer], cache.v[layer],
                                       mask=mask[:, None], impl="xla")
-        return y.reshape(B, S, H * D) @ self.o_proj
+        return y.reshape(B, S, H * D) @ _cast(self.o_proj, x)
 
 
 class LlamaMLP(nn.Module):
@@ -196,7 +214,8 @@ class LlamaMLP(nn.Module):
         self.down_proj = _param((mlp_dim, hidden), dtype)
 
     def forward(self, x):
-        return (F.silu(x @ self.gate_proj) * (x @ self.up_proj)) @ self.down_proj
+        gate = F.silu(x @ _cast(self.gate_proj, x))
+        return (gate * (x @ _cast(self.up_proj, x))) @ _cast(self.down_proj, x)
 
 
 class LlamaBlock(nn.Module):
@@ -232,23 +251,32 @@ def _refuse_unported(cfg) -> None:
 
 
 class LlamaForCausalLM(nn.Module):
-    """input_ids (B, S) -> (B, S, vocab) fp32 logits."""
+    """input_ids (B, S) -> (B, S, vocab) fp32 logits, or, when trainable
+    with ``fused_lm_loss``, {'loss_sum', 'weight_sum'}.
 
-    def __init__(self, cfg, precision, params: dict, *, device="cuda"):
+    ``params`` (name -> tensor) are adopted without a copy where their
+    dtype and device already match, so training updates them in place."""
+
+    def __init__(self, cfg, precision, params: dict, *, device="cuda",
+                 trainable: bool = False):
         super().__init__()
         _refuse_unported(cfg)
+        if trainable and cfg.remat:
+            remat_lib.check_policy(cfg.remat_policy)
+        self.trainable = trainable
         if cfg.name != "llama":
             raise ValueError(f"not a llama config: {cfg.name!r}")
         if cfg.hidden_size % cfg.num_heads:
             raise ValueError("hidden_size must divide by num_heads")
         self.cfg = cfg
         self.dtype = torch_dtype(precision.compute_dtype)
+        store = torch_dtype(precision.param_dtype) if trainable else self.dtype
         self.max_seq_len = cfg.max_seq_len
         self.attn_impl = cfg.attention_impl
         self.decode = self.decode_rows = False
-        self.tok_embed = _param((cfg.vocab_size, cfg.hidden_size), self.dtype)
+        self.tok_embed = _param((cfg.vocab_size, cfg.hidden_size), store)
         self.layers = nn.ModuleList(
-            LlamaBlock(cfg, self.dtype) for _ in range(cfg.num_layers))
+            LlamaBlock(cfg, store) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = _param((cfg.hidden_size, cfg.vocab_size), torch.float32)
         self._load(params, torch.device(device))
@@ -276,22 +304,27 @@ class LlamaForCausalLM(nn.Module):
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(src.shape)}, model "
                                  f"wants {tuple(p.shape)}")
-            if name == "lm_head":
+            if name == "lm_head" and not self.trainable:
                 # bf16 operands, fp32 accumulation: keep the head's
                 # compute-dtype values in fp32
                 src = src.to(device=device, dtype=self.dtype)
             t = src.to(device=device, dtype=p.dtype)
             mod, _, leaf = name.rpartition(".")
             owner = self.get_submodule(mod) if mod else self
-            setattr(owner, leaf, nn.Parameter(t, requires_grad=False))
+            setattr(owner, leaf, nn.Parameter(t, requires_grad=self.trainable))
 
     def twin(self, *, decode: bool | None = None,
              decode_rows: bool | None = None,
-             attn_impl: str | None = None) -> "LlamaForCausalLM":
-        """A copy that shares every weight, with other mode flags."""
+             attn_impl: str | None = None,
+             dtype: torch.dtype | None = None) -> "LlamaForCausalLM":
+        """A copy that shares every weight, with other mode flags (or, for
+        a trainable model, another compute dtype)."""
+        if dtype is not None and not self.trainable:
+            raise ValueError("a serving model holds its weights in its "
+                             "compute dtype; build another for another dtype")
         m = copy.copy(self)
         for k, val in (("decode", decode), ("decode_rows", decode_rows),
-                       ("attn_impl", attn_impl)):
+                       ("attn_impl", attn_impl), ("dtype", dtype)):
             if val is not None:
                 object.__setattr__(m, k, val)
         return m
@@ -308,21 +341,33 @@ class LlamaForCausalLM(nn.Module):
                                     self.cfg.rope_scaling,
                                     self.cfg.rope_scaling_type,
                                     device=input_ids.device)
-        x = F.embedding(input_ids, self.tok_embed)
+        x = F.embedding(input_ids, self.tok_embed).to(self.dtype)
+        remat = self.trainable and self.cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, rope, mode, cache, i)
+            if remat:
+                x = remat_lib.remat_call(layer, x, rope, mode, cache, i)
+            else:
+                x = layer(x, rope, mode, cache, i)
         if self.decode:
             if S > 1:
                 cache.index.fill_(S)
             else:
                 cache.index.add_(S)
         x = self.final_norm(x)
-        return x.float() @ self.lm_head
+        if not self.trainable:
+            return x.float() @ self.lm_head
+        head = self.lm_head.to(self.dtype)
+        if self.cfg.fused_lm_loss and not self.decode:
+            return chunked_causal_ce(x, head, input_ids)
+        return x.float() @ head.float()
 
 
-def param_shapes(cfg, precision) -> dict[str, tuple[tuple, torch.dtype]]:
-    """name -> (shape, storage dtype) of the model's weights."""
-    dtype = torch_dtype(precision.compute_dtype)
+def param_shapes(cfg, precision, *, trainable: bool = False
+                 ) -> dict[str, tuple[tuple, torch.dtype]]:
+    """name -> (shape, storage dtype) of the model's weights: the compute
+    dtype for serving, ``param_dtype`` for training."""
+    dtype = torch_dtype(precision.param_dtype if trainable
+                        else precision.compute_dtype)
     with torch.device("meta"):
         blk = LlamaBlock(cfg, dtype)
     out = {"tok_embed": ((cfg.vocab_size, cfg.hidden_size), dtype)}
@@ -334,15 +379,18 @@ def param_shapes(cfg, precision) -> dict[str, tuple[tuple, torch.dtype]]:
     return out
 
 
-def init_params(cfg, precision, *, seed: int = 0, device="cuda") -> dict:
-    """Random weights drawn from ``seed`` directly on ``device`` in the
-    compute dtype: normal(0, 0.02) for every matrix, ones for the norm
-    scales (the JAX package's initialisers; the draws differ)."""
+def init_params(cfg, precision, *, seed: int = 0, device="cuda",
+                trainable: bool = False) -> dict:
+    """Random weights drawn from ``seed`` directly on ``device`` in their
+    storage dtype (see :func:`param_shapes`): normal(0, 0.02) for every
+    matrix, ones for the norm scales (the JAX package's initialisers; the
+    draws differ)."""
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     out = {}
-    for name, (shape, dtype) in param_shapes(cfg, precision).items():
+    for name, (shape, dtype) in param_shapes(
+            cfg, precision, trainable=trainable).items():
         if name.endswith(".scale"):
             out[name] = torch.ones(shape, dtype=dtype, device=device)
         else:
@@ -351,7 +399,10 @@ def init_params(cfg, precision, *, seed: int = 0, device="cuda") -> dict:
     return out
 
 
-def llama(cfg, precision, params=None, *, device="cuda", seed: int = 0):
+def llama(cfg, precision, params=None, *, device="cuda", seed: int = 0,
+          trainable: bool = False):
     if params is None:
-        params = init_params(cfg, precision, seed=seed, device=device)
-    return LlamaForCausalLM(cfg, precision, params, device=device)
+        params = init_params(cfg, precision, seed=seed, device=device,
+                             trainable=trainable)
+    return LlamaForCausalLM(cfg, precision, params, device=device,
+                            trainable=trainable)

@@ -1,5 +1,5 @@
-"""Model registry: config name -> PyTorch model. This slice has the llama
-family only."""
+"""Model registry: config name -> PyTorch model, for serving or training.
+The port has the llama family only."""
 
 from __future__ import annotations
 
@@ -13,13 +13,14 @@ def list_models() -> list[str]:
 
 
 def build_model(model_cfg, precision_cfg, params: dict | None = None, *,
-                device="cuda", seed: int = 0):
+                device="cuda", seed: int = 0, trainable: bool = False):
     """Build ``model_cfg.name`` under ``precision_cfg`` on ``device``, with
     ``params`` (name -> tensor, e.g. from ``interop.params_from_jax``) or,
-    when None, weights drawn from ``seed`` on the device."""
+    when None, weights drawn from ``seed`` on the device. ``trainable``
+    builds the training model (fp32 params with gradients, cast at use)."""
     name = model_cfg.name
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; the PyTorch package has "
                        f"{list_models()}")
     return _REGISTRY[name](model_cfg, precision_cfg, params, device=device,
-                           seed=seed)
+                           seed=seed, trainable=trainable)

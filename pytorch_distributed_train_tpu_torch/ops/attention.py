@@ -6,11 +6,13 @@ The counterpart of the JAX package's ``ops/attention.py``. Shapes are
 - ``"xla"``: the plain PyTorch path (:func:`_xla_attention`), with the JAX
   package's casts: fp32 scores, masked with the fp32 minimum, fp32 softmax,
   probabilities cast back to the input dtype before P.V.
-- ``"pallas"``: the port's hand kernel (``ops/flash_attention.py``); it
-  raises for shapes the kernel does not take. On CPU tensors the kernel's
-  plain version runs, as the JAX kernel runs in interpret mode off the TPU.
-- ``"auto"``: on CUDA every call the kernel supports goes to it; otherwise
-  the plain path.
+- ``"pallas"``: the port's hand kernels (``ops/flash_attention.py``),
+  forward and, under autograd, backward through ``_Flash``; it raises for
+  shapes the kernels do not take. On CPU tensors the kernels' plain
+  versions run, as the JAX kernels run in interpret mode off the TPU.
+- ``"auto"``: on CUDA every call the kernels support goes to them (through
+  ``_Flash`` when autograd records); otherwise the plain path, which is
+  differentiable by torch itself.
 """
 
 from __future__ import annotations

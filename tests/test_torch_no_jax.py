@@ -40,6 +40,10 @@ generate(m, [[1, 2, 3]], 3)
 b = ContinuousBatcher(cfg.model, cfg.precision, device="cpu", slots=2)
 b.submit([4, 5, 6], 2)
 b.step()
+from pytorch_distributed_train_tpu_torch.trainer import Trainer
+cfg.apply_overrides(["data.seq_len=16", "data.batch_size=2",
+                     "data.synthetic_size=4", "obs.log_every_steps=1"])
+Trainer(cfg, device="cpu").fit(1)
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -52,6 +56,7 @@ def test_port_runs_without_importing_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     mods = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "pytorch_distributed_train_tpu_torch.serving" in mods
+    assert "pytorch_distributed_train_tpu_torch.trainer" in mods
     bad = [m for m in mods if _forbidden(m)]
     assert not bad, f"JAX-side modules imported: {bad[:10]}"
 
@@ -83,6 +88,18 @@ def test_no_forbidden_import_in_source(path):
                 _forbidden(str(node.args[0].value)):
             found.append(node.args[0].value)
     assert not found, f"{path} imports {found}"
+
+
+TRAINING_MODULES = ("trainer.py", "steps.py", "optim.py", "losses.py",
+                    "train_state.py", "train_cli.py", "data/datasets.py",
+                    "data/sampler.py", "data/pipeline.py", "models/remat.py",
+                    "ops/flash_attention.py")
+
+
+def test_scan_covers_the_training_modules():
+    scanned = {os.path.relpath(p, PORT) for p in _py_files()}
+    missing = [m for m in TRAINING_MODULES if m not in scanned]
+    assert not missing, f"the AST scan misses {missing}"
 
 
 def test_cpu_tensors_count_no_kernel_launch():
